@@ -1,14 +1,11 @@
-"""Sharded-step CORRECTNESS sweep across mesh sizes (not an ICI benchmark).
+"""Sharded-step sweep across mesh sizes.
 
 Runs the sharded streaming step at time-mesh sizes 1, 2, 4, ... N and
-reports throughput per size. On this environment the sweep necessarily
-runs on a virtual CPU mesh (one real chip), where the "efficiency" column
-reflects host thread scheduling, NOT interconnect behavior — treat it as a
-correctness/scaling-shape sweep only. The scaling-efficiency claim for
-real pods is the analytic halo-communication model in PERF.md (round 2):
-one ppermute of (taps-1)/ratio x 4 B per channel per step against measured
-per-chip compute, >=99% at shipped granules even over DCN. On a real pod
-slice this same script would exercise ICI directly.
+reports throughput per size. On a virtual CPU mesh the "efficiency" column
+reflects host thread scheduling, not interconnect behavior — treat it as a
+correctness/scaling-shape sweep only. On a multi-GPU host the same script
+exercises the NVLink halo exchange (one ppermute of (taps-1)/ratio x 4 B
+per channel per step).
 
   TOTTON_PLATFORM=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python -m benchmarks.bench_scaling
@@ -46,9 +43,9 @@ def main(argv=None) -> int:
     if devices[0].platform == "cpu":
         print(
             "note: virtual CPU devices share physical cores — efficiency "
-            "here measures host-core contention, not ICI; it validates "
-            "correctness/compilation of the sharded path, not scaling. "
-            "Run on a real pod slice for scaling numbers.",
+            "here measures host-core contention, not the interconnect; "
+            "it validates correctness/compilation of the sharded path, "
+            "not scaling. Run on a multi-GPU host for scaling numbers.",
             file=sys.stderr,
         )
 
@@ -79,9 +76,8 @@ def main(argv=None) -> int:
         tail, spec = ups._tail, ups._spectrum
         step = ups._step
 
-        # Chained evaluations inside one jit (lazy-execution-safe timing;
-        # see bench.py / PERF.md). Operands are jit arguments, not closure
-        # constants (PERF.md "First-call latency anatomy").
+        # Chained evaluations inside one jit. Operands are jit arguments,
+        # not closure constants.
         def chain(a0, tl, xa, sp):
             def body(acc, _):
                 y, _tail = step(tl, xa * (1.0 + 1e-6 * acc), sp)
@@ -109,7 +105,7 @@ def main(argv=None) -> int:
             "samples_per_s": round(sps, 1),
             "per_device_samples_per_s": round(sps / n_time, 1),
             # On a virtual CPU mesh this measures host thread scheduling,
-            # not ICI — see module docstring and PERF.md's analytic model.
+            # not the interconnect — see module docstring.
             ("host_thread_efficiency" if virtual else "scaling_efficiency"):
                 round(eff, 3),
         }))

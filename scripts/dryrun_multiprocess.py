@@ -92,7 +92,7 @@ def worker(pid: int, port: int) -> int:
             assert snr > 100.0, f"proc {pid} step {s} ch {c}: SNR {snr:.1f} dB"
     # --- Channel-only multi-host sharding (n_time=1): each process owns a
     # block of channel ROWS over the full time span — zero-communication
-    # scaling (PERF.md scaling model), previously a dead end because the
+    # scaling, previously a dead end because the
     # single time column spanned both processes.
     mesh_ch = make_mesh(n_channel=8, n_time=1)
     ups_ch = ShardedUpsampler(lf, mesh_ch, channels=8)

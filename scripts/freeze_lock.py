@@ -6,7 +6,7 @@ the moral equivalent of the reference's uv.lock
 (/root/reference/uv.lock, consumed by scripts/deployment/run_tests.sh:14).
 CI and release builds install from the lock so a jax/jaxlib minor bump
 can never silently change XLA fusion behavior under the recorded
-PERF.md / BENCH numbers.
+performance numbers.
 
   python scripts/freeze_lock.py > requirements-lock.txt
 """
@@ -40,12 +40,12 @@ def main() -> int:
     seen: dict[str, str] = {}
     for r in ROOTS:
         walk(r, seen)
-    print("# Reproducible environment lock for totton-tpu (VERDICT r3 "
-          "item 6;")
+    print("# Reproducible environment lock for totton-tpu")
+    print("# (CI and release builds install from it;")
     print("# reference analog: /root/reference/uv.lock consumed by")
     print("# scripts/deployment/run_tests.sh). Pinned to the environment "
           "every")
-    print(f"# PERF.md / BENCH_r*.json number was measured in (python "
+    print(f"# performance number was measured in (python "
           f"{sys.version.split()[0]}).")
     print("# Install: pip install -r requirements-lock.txt")
     print("# Regenerate: python scripts/freeze_lock.py > "

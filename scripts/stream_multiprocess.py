@@ -4,7 +4,7 @@ control daemon on process 0 hot-swapping EQ mid-stream and the published
 event fanning out to process 1's follower.
 
 Topology (channel-only mesh — the natural multi-host streaming layout,
-zero-communication scaling per PERF.md):
+zero-communication scaling):
 
   orchestrator ──paced stdin PCM──> worker 0 (leader: REQ/REP + PUB) ──> out0.wav
                ──paced stdin PCM──> worker 1 (follower: SUB)         ──> out1.wav

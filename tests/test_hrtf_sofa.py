@@ -1,6 +1,6 @@
 """SOFA (measured-HRIR) path of the crossfeed generator, end to end.
 
-Round-2 VERDICT item 6: the SOFA chain was exercised only through the
+The SOFA chain was exercised only through the
 synthetic fallback. This builds a HUTUBS-shaped SOFA fixture (HDF5 via
 h5py: Data.IR [M, R, N], SourcePosition [M, 3], Data.SamplingRate) with
 measured-like HRIRs whose per-position signatures let every stage be

@@ -87,8 +87,6 @@ class TestAgainstOracle:
     @pytest.mark.parametrize(
         "taps,fft,ratio",
         [(5, 64, 1), (9, 64, 2), (17, 64, 4), (33, 128, 8), (33, 128, 16),
-         # m = 1024 = 32x32: exercises the split-layout folded 2x pipeline
-         # (_split_folded_ok true) rather than the classic fallback.
          (257, 2048, 2)],
     )
     def test_matches_direct_convolution(self, rng, taps, fft, ratio):
@@ -176,146 +174,134 @@ class TestStreaming:
         assert rel_err(np.concatenate(y2, -1)[0], ref) < 1e-5
 
 
-class TestAbsorbedInverse:
-    """The tile-absorbed inverse (the batched-throughput hot path) vs the
-    folded pipeline and the direct-convolution oracle.
 
-    Small dispatches fall below _ABSORBED_MIN_FRAMES and production tap
-    counts are slow on CPU, so this drives _upsample_frames_absorbed
-    directly on a reduced two-stage geometry."""
 
-    @pytest.mark.parametrize("inv_q2", [0, 32, 128])
-    @pytest.mark.parametrize("form,stage2", [
-        ("split", "stack"), ("split", "einsum"),
-        ("stacked", "einsum"), ("stacked2", "einsum"),
-    ])
-    @pytest.mark.parametrize("taps,fft,ratio", [
-        (1025, 8192, 4),
-        (2001, 16384, 8),
-        (4097, 16384, 16),
-    ])
-    def test_matches_oracle_and_folded(self, rng, taps, fft, ratio, form,
-                                       stage2, inv_q2):
-        """inv_q2 != 0 exercises the rebalanced splits (KernelTuning.inv_q2
-        / TOTTON_INV_Q2) — q2=32 also breaks the forward P | Q2 coupling
-        on these geometries, covering the non-split fallback branch."""
-        from totton_tpu.ops.overlap_save import (
-            KernelTuning,
-            _absorbed_eligible,
-            _upsample_frames_absorbed,
-        )
+def _geometry(ratio: int) -> OverlapSaveConfig:
+    """Small geometry with the production invariants at any ratio:
+    frame_in 64, block_in 40, halo_in 24."""
+    return OverlapSaveConfig(taps=24 * ratio + 1, fft_size=64 * ratio,
+                             block_size=40 * ratio, ratio=ratio)
 
-        tuning = KernelTuning(form=form, stage2_interleave=stage2,
-                              inv_q2=inv_q2)
+
+def _stream_oracle(tail, x, h, cfg):
+    """float64 oracle of one step: zero-stuff [tail | x], convolve, drop
+    the history's output."""
+    out = []
+    for c in range(x.shape[0]):
+        full = oracle_upsample(np.concatenate([tail[c], x[c]]), h, cfg.ratio)
+        out.append(full[cfg.halo_in * cfg.ratio:])
+    return np.stack(out)
+
+
+class TestStepOracle:
+    """The jitted streaming step (rfft -> periodic extension -> x H ->
+    irfft -> discard) against the float64 oracle, over every ratio and
+    the dispatch widths the engine, live and serve paths use."""
+
+    @pytest.mark.parametrize("channels", [1, 2])
+    @pytest.mark.parametrize("blocks", [1, 2, 33, 64])
+    @pytest.mark.parametrize("ratio", [1, 2, 4, 8, 16])
+    def test_step_matches_float64_oracle(self, rng, ratio, blocks, channels):
+        cfg = _geometry(ratio)
+        h = rng.normal(size=cfg.taps)
+        tail = rng.normal(size=(channels, cfg.halo_in)).astype(np.float32)
+        x = rng.normal(size=(channels, blocks * cfg.block_in)).astype(
+            np.float32)
+        y, new_tail = make_block_step(cfg)(
+            jnp.asarray(tail), jnp.asarray(x), filter_spectrum(h, cfg.fft_size))
+        assert y.shape == (channels, blocks * cfg.block_size)
+        # float32 transforms of <= 1024 points: ~1e-7 relative noise, so
+        # 1e-5 of the peak leaves two orders of margin.
+        assert rel_err(np.asarray(y), _stream_oracle(tail, x, h, cfg)) < 1e-5
+        np.testing.assert_array_equal(
+            np.asarray(new_tail),
+            np.concatenate([tail, x], axis=-1)[:, -cfg.halo_in:])
+
+    @pytest.mark.parametrize("taps,fft", [(2, 16), (16, 64), (64, 256),
+                                          (128, 512)])
+    def test_odd_overlap(self, rng, taps, fft):
+        """Even tap counts give an odd overlap (ratio 1 only, since
+        (taps-1) % ratio == 0)."""
         cfg = OverlapSaveConfig(taps=taps, fft_size=fft,
-                                block_size=fft - (taps - 1), ratio=ratio)
-        assert _absorbed_eligible(cfg, n_frames=64, tuning=tuning), (
-            "geometry must exercise the absorbed path"
-        )
-        h = rng.normal(size=taps) * np.exp(-np.arange(taps) * 4.0 / taps)
-        spectrum = filter_spectrum(h, fft)
-        x = rng.normal(size=(2, 5 * cfg.block_in)).astype(np.float32)
-        xin = np.concatenate(
-            [np.zeros((2, cfg.halo_in), np.float32), x], axis=-1
-        )
-        frames = frame_input(jnp.asarray(xin), cfg.block_in, cfg.halo_in)
-        y = np.asarray(
-            _upsample_frames_absorbed(frames, spectrum, cfg, tuning))
-        y = y.reshape(2, -1)
-        ref = np.stack([oracle_upsample(x[c], h, ratio) for c in range(2)])
-        assert rel_err(y, ref[:, : y.shape[-1]]) < 1e-4
+                                block_size=fft - (taps - 1), ratio=1)
+        assert cfg.overlap % 2 == 1
+        h = rng.normal(size=taps)
+        x = rng.normal(size=(2, 3 * cfg.block_in)).astype(np.float32)
+        xin = np.concatenate([np.zeros((2, cfg.halo_in), np.float32), x], -1)
+        y = np.asarray(upsample_blocks(jnp.asarray(xin),
+                                       filter_spectrum(h, fft), cfg))
+        ref = np.stack([oracle_upsample(x[c], h, 1) for c in range(2)])
+        assert rel_err(y, ref) < 1e-5
 
-    @pytest.mark.parametrize("fwd_p", [32, 64, 128, 96])
-    def test_forward_split_override(self, rng, fwd_p):
-        """KernelTuning.fwd_p pins the forward's two-stage split; an
-        inapplicable value (96 doesn't divide m=2048 into two power-of-two
-        stages... it doesn't divide at all) falls back to the default."""
-        from totton_tpu.ops.overlap_save import (
-            KernelTuning, _upsample_frames_absorbed,
-        )
-
-        taps, fft, ratio = 4097, 16384, 8
-        tuning = KernelTuning(fwd_p=fwd_p)
-        cfg = OverlapSaveConfig(taps=taps, fft_size=fft,
-                                block_size=fft - (taps - 1), ratio=ratio)
-        h = rng.normal(size=taps) * np.exp(-np.arange(taps) * 4.0 / taps)
-        spectrum = filter_spectrum(h, fft)
-        x = rng.normal(size=(2, 5 * cfg.block_in)).astype(np.float32)
-        xin = np.concatenate(
-            [np.zeros((2, cfg.halo_in), np.float32), x], axis=-1
-        )
-        frames = frame_input(jnp.asarray(xin), cfg.block_in, cfg.halo_in)
-        y = np.asarray(
-            _upsample_frames_absorbed(frames, spectrum, cfg, tuning))
-        y = y.reshape(2, -1)
-        ref = np.stack([oracle_upsample(x[c], h, ratio) for c in range(2)])
-        assert rel_err(y, ref[:, : y.shape[-1]]) < 1e-4
-
-    def test_tuning_validation(self):
-        from totton_tpu.ops.overlap_save import KernelTuning
-
-        with pytest.raises(ValueError, match="form"):
-            KernelTuning(form="bogus")
-        with pytest.raises(ValueError, match="stage2"):
-            KernelTuning(stage2_interleave="bogus")
-
-    def test_tuning_from_env(self, monkeypatch):
-        from totton_tpu.ops.overlap_save import KernelTuning
-
-        monkeypatch.setenv("TOTTON_ABSORBED_FORM", "stacked")
-        monkeypatch.setenv("TOTTON_INV_Q2", "256")
-        t = KernelTuning.from_env()
-        assert t.form == "stacked" and t.inv_q2 == 256
-        assert KernelTuning.from_env(inv_q2=0).inv_q2 == 0  # override wins
-
-    def test_absorbed_guard_message(self, rng):
-        """Direct callers on a single-stage inverse geometry get a clear
-        error, not an opaque NoneType unpack (round-3 advisor finding)."""
-        from totton_tpu.ops.overlap_save import _upsample_frames_absorbed
-
-        cfg = OverlapSaveConfig(taps=129, fft_size=512, block_size=384,
-                                ratio=4)
-        spectrum = filter_spectrum(rng.normal(size=129), 512)
-        frames = jnp.zeros((1, 2, cfg.frame_in), jnp.float32)
-        with pytest.raises(ValueError, match="two-stage inverse"):
-            _upsample_frames_absorbed(frames, spectrum, cfg)
-
-    def test_production_split_resolution(self):
-        """The K-curve rebalance rule resolves the production 16x inverse
-        to (512, 128) and leaves ratios 4/8 balanced (PERF.md round 3);
-        an override that violates the structural divisibilities falls
-        back to the default split instead of breaking the algebra."""
-        from totton_tpu.ops import overlap_save as osv
-
-        h = 131072 // 2
-        assert osv._inv_split(131072 // 16, h) == (512, 128)
-        assert osv._inv_split(131072 // 8, h) == (256, 256)
-        assert osv._inv_split(131072 // 4, h) == (256, 256)
-        # 96 is not a divisor of h: falls back to the rebalanced default.
-        assert osv._inv_split(131072 // 16, h, inv_q2=96) == (512, 128)
-
-    def test_gate_respects_batch_and_ratio(self):
-        from totton_tpu.ops.overlap_save import _absorbed_eligible
-
-        prod = OverlapSaveConfig(taps=80001, fft_size=131072,
-                                 block_size=51072, ratio=16)
-        assert _absorbed_eligible(prod, n_frames=32)
-        assert not _absorbed_eligible(prod, n_frames=8)  # small dispatch
-        two_x = OverlapSaveConfig(taps=80001, fft_size=131072,
-                                  block_size=51072, ratio=2)
-        assert not _absorbed_eligible(two_x, n_frames=256)  # trivial tile
+    @pytest.mark.parametrize("ratio", [1, 2, 4, 8, 16])
+    def test_spectrum_hot_swap_never_recompiles(self, rng, ratio):
+        """The spectrum is a traced argument: swapping filters (RELOAD /
+        EQ) reuses the compiled step and takes effect at once."""
+        cfg = _geometry(ratio)
+        step = make_block_step(cfg)
+        tail = np.zeros((2, cfg.halo_in), np.float32)
+        x = rng.normal(size=(2, 2 * cfg.block_in)).astype(np.float32)
+        outs, sizes = [], []
+        for _ in range(3):
+            h = rng.normal(size=cfg.taps)
+            y, _ = step(jnp.asarray(tail), jnp.asarray(x),
+                        filter_spectrum(h, cfg.fft_size))
+            assert rel_err(np.asarray(y), _stream_oracle(tail, x, h, cfg)) < 1e-5
+            outs.append(np.asarray(y))
+            sizes.append(step._cache_size())
+        assert sizes[0] == sizes[-1]
+        assert not np.allclose(outs[0], outs[1])
 
 
-def test_production_geometries_use_split_forward():
-    """All production ratios >= 4 satisfy the split-layout condition
-    (two-stage forward with P | Q2), so the absorbed path never pays the
-    forward inter-stage transpose."""
-    from totton_tpu.ops import fft as _fft
+class TestSpectrum:
+    @pytest.mark.parametrize("m", [2, 8, 64, 1024])
+    @pytest.mark.parametrize("ratio", [1, 2, 4, 8, 16])
+    def test_periodic_extension_is_zero_stuffed_rfft(self, rng, ratio, m):
+        """rfft(frame, M) extended periodically == rfft of the zero-stuffed
+        frame at length r*M (the free zero-stuffing of the hot path)."""
+        from totton_tpu.ops.overlap_save import _periodic_rfft_extend
 
-    for ratio in (4, 8, 16):
+        x = rng.normal(size=(3, m)).astype(np.float32)
+        got = np.asarray(_periodic_rfft_extend(jnp.fft.rfft(jnp.asarray(x)),
+                                               ratio))
+        up = np.zeros((3, m * ratio))
+        up[:, ::ratio] = x
+        ref = np.fft.rfft(up)
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())
+
+    @pytest.mark.parametrize("fft", [64, 1024, 131072])
+    def test_filter_spectrum_matches_numpy(self, rng, fft):
+        h = rng.normal(size=fft // 2 + 1)
+        eq = rng.uniform(0.5, 2.0, size=fft // 2 + 1)
+        hr, hi = filter_spectrum(h, fft, eq)
+        assert hr.dtype == jnp.float32 and hr.shape == (fft // 2 + 1,)
+        ref = np.fft.rfft(h, fft) * eq
+        np.testing.assert_allclose(np.asarray(hr) + 1j * np.asarray(hi), ref,
+                                   rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+    def test_filter_spectrum_rejects_bad_inputs(self):
+        with pytest.raises(ValueError, match="longer"):
+            filter_spectrum(np.ones(65), 64)
+        with pytest.raises(ValueError, match="eq_response"):
+            filter_spectrum(np.ones(8), 64, np.ones(10))
+
+    @pytest.mark.parametrize("ratio", [1, 2, 4, 8, 16])
+    def test_production_width_snr_gate(self, rng, ratio):
+        """At the production width (80001 taps, fft 131072) one frame
+        stays above the 125 dB gate against float64 on this backend."""
+        from scipy import signal as ssig
+
         cfg = OverlapSaveConfig(taps=80001, fft_size=131072,
                                 block_size=51072, ratio=ratio)
-        m_factors = _fft._factorize(cfg.frame_in)
-        _, q2 = _fft._factorize(cfg.fft_size // 2)
-        assert len(m_factors) == 2
-        assert q2 % m_factors[0] == 0
+        h = rng.normal(size=cfg.taps) * np.exp(-np.arange(cfg.taps) / 8000)
+        x = (rng.normal(size=(1, cfg.halo_in + cfg.block_in)) * 0.3).astype(
+            np.float32)
+        y = np.asarray(upsample_blocks(jnp.asarray(x),
+                                       filter_spectrum(h, cfg.fft_size), cfg))
+        up = np.zeros(x.shape[1] * ratio)
+        up[::ratio] = x[0]
+        ref = ssig.fftconvolve(up, h)[cfg.halo_in * ratio:][: y.shape[1]]
+        snr = 10 * np.log10(np.sum(ref ** 2) / np.sum((y[0] - ref) ** 2))
+        assert snr >= 125.0, snr

@@ -449,8 +449,8 @@ class TestScheduledSwap:
 
 def test_single_device_mesh_exactly_equals_plain_engine(small_filter, rng):
     """A 1x1 mesh resolves to the PLAIN step program (the shard_map
-    wrapper costs ~24% of a live-granule step for zero semantic effect
-    — PERF.md round 4); the sharded engine must stay bit-identical to
+    wrapper adds a fixed per-step cost for zero semantic effect); the
+    sharded engine must stay bit-identical to
     StreamingUpsampler there, including streaming state and fades."""
     import jax
 

@@ -1,7 +1,6 @@
 """Pipelined dispatch (dispatch_block/fetch + session overlap) must be
 sample-exact with the synchronous path — the overlap is a scheduling
-change only (VERDICT r3 item 1: overlap transfer and compute in the live
-streaming path)."""
+change only (overlap transfer and compute in the live streaming path)."""
 
 import numpy as np
 import pytest

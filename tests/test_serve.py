@@ -282,7 +282,7 @@ def test_cli_smoke(tmp_path, rng):
 
 def test_cli_recycle_rss_drains_then_exits_3(tmp_path, rng):
     """--recycle-rss-mb: bounded-memory serving on runtimes that leak
-    host memory below the framework (PERF.md round-5 soak attribution).
+    host memory below the framework.
     A 1 MB cap trips on the first poll; the live stream must still be
     drained to completion (oracle match, no cut) before the process
     exits with the recycle code 3 for its supervisor."""

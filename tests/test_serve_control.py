@@ -1,4 +1,4 @@
-"""Serving-plane control e2e: the round-4 VERDICT item-1 Done criterion.
+"""Serving-plane control e2e.
 
 8 concurrent streams on totton-serve with the ZMQ control endpoint
 attached; a web-style RELOAD (config phaseType flip) lands mid-stream;

@@ -131,8 +131,8 @@ def test_cli_bad_filter(tmp_path):
 
 
 class TestDispatchBatching:
-    """Auto dispatch-granule selection (PERF.md: deep offline batches fill
-    the MXU; realtime dispatches block-at-a-time for latency)."""
+    """Auto dispatch-granule selection (deep offline batches amortize the
+    per-dispatch cost; realtime dispatches block-at-a-time for latency)."""
 
     def test_offline_source_gets_deep_batches(self, coefficients_dir):
         from totton_tpu.io.stream import OFFLINE_BATCH_BLOCKS
@@ -275,8 +275,8 @@ def test_sigint_stops_stream_gracefully(coefficients_dir, tmp_path):
 
 
 class TestControlWiring:
-    """The daemon's callbacks must act on the OUTERMOST engine (round-2
-    VERDICT weak #1: SOFT_RESET bypassed the crossfeed chain)."""
+    """The daemon's callbacks must act on the OUTERMOST engine (a
+    SOFT_RESET once bypassed the crossfeed chain)."""
 
     def test_soft_reset_targets_outermost_engine(
             self, coefficients_dir, tmp_path, monkeypatch, rng):
@@ -318,7 +318,7 @@ class TestControlWiring:
 
 def test_cli_sharded_crossfeed_matches_unsharded(coefficients_dir, tmp_path,
                                                  rng):
-    """--shard-time + --crossfeed composition (round-2 VERDICT weak #3):
+    """--shard-time + --crossfeed composition:
     the sharded engine wrapped in the chain must produce the same audio as
     the single-device chain."""
     from totton_tpu.cli import stream as stream_cli

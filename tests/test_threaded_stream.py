@@ -182,8 +182,8 @@ def test_output_ring_size_independent_of_dispatch_depth(coefficients_dir):
 
 def test_stream_stats_cross_thread_counts_exact():
     """StreamStats is the framework's observability surface; its counters
-    are mutated from feeder/drainer/main threads concurrently (round-2
-    VERDICT weak #4: unsynchronized += lost counts). All mutators now
+    are mutated from feeder/drainer/main threads concurrently
+    (unsynchronized += once lost counts). All mutators now
     serialize on one lock — concurrent increments must be conserved."""
     import threading
 

@@ -92,7 +92,7 @@ async def test_ui_pages_render(client):
     for path in ("/", "/settings"):
         resp = await client.get(path)
         assert resp.status == 200
-        assert "Totton TPU DSP" in await resp.text()
+        assert "Totton GPU DSP" in await resp.text()
 
 
 async def test_eq_import_activate_delete_cycle(client):

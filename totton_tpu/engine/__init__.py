@@ -1,6 +1,6 @@
 """Streaming upsampler engine.
 
-The TPU-native equivalent of the reference's VulkanStreamingUpsampler
+The equivalent of the reference's VulkanStreamingUpsampler
 (src/vulkan/vulkan_streaming_upsampler.cpp) plus filter selection
 (src/alsa/alsa_filter_selector.cpp).
 """

@@ -23,7 +23,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from totton_tpu.ops import fft as _fft
 from totton_tpu.ops.overlap_save import OverlapSaveConfig, frame_input
 
 
@@ -66,22 +65,15 @@ def _cf_geometry(taps: int) -> OverlapSaveConfig:
 @functools.lru_cache(maxsize=16)
 def _make_cf_step(cfg: OverlapSaveConfig):
     @jax.jit
-    def step(tail, x, h):  # x: [2, T]; h: ([4, bins], [4, bins]) pair
-        hr, hi = h
+    def step(tail, x, h):  # x: [2, T]; h: [4, bins] complex64
         xin = jnp.concatenate([tail, x], axis=-1)
         frames = frame_input(xin, cfg.block_in, cfg.halo_in)  # [2, B, F]
-        xr, xi = _fft.rfft2(frames, cfg.frame_in)  # [2, B, bins]
+        xf = jnp.fft.rfft(frames, n=cfg.frame_in)  # [2, B, bins]
         # out_L = LL*L + RL*R ; out_R = LR*L + RR*R  (indices 0..3 =
         # LL, LR, RL, RR).
-        yl_r, yl_i = _fft.complex_mul(xr[0], xi[0], hr[0], hi[0])
-        t_r, t_i = _fft.complex_mul(xr[1], xi[1], hr[2], hi[2])
-        yl_r, yl_i = yl_r + t_r, yl_i + t_i
-        yr_r, yr_i = _fft.complex_mul(xr[0], xi[0], hr[1], hi[1])
-        t_r, t_i = _fft.complex_mul(xr[1], xi[1], hr[3], hi[3])
-        yr_r, yr_i = yr_r + t_r, yr_i + t_i
-        yr_stack = jnp.stack([yl_r, yr_r])  # [2, B, bins]
-        yi_stack = jnp.stack([yl_i, yr_i])
-        y = _fft.irfft2(yr_stack, yi_stack, cfg.fft_size)[..., cfg.overlap:]
+        yf = jnp.stack([xf[0] * h[0] + xf[1] * h[2],
+                        xf[0] * h[1] + xf[1] * h[3]])  # [2, B, bins]
+        y = jnp.fft.irfft(yf, n=cfg.fft_size)[..., cfg.overlap:]
         out = y.reshape(2, -1)
         new_tail = xin[:, -cfg.halo_in:] if cfg.halo_in else tail[:, :0]
         return out, new_tail
@@ -96,10 +88,7 @@ class CrossfeedProcessor:
         self.filter = filt
         self.config = _cf_geometry(filt.taps)
         spectra = np.fft.rfft(filt.channels, self.config.fft_size)
-        self._h = (
-            jnp.asarray(spectra.real.astype(np.float32)),
-            jnp.asarray(spectra.imag.astype(np.float32)),
-        )
+        self._h = jnp.asarray(spectra.astype(np.complex64))
         self._step = _make_cf_step(self.config)
         self._tail = jnp.zeros((2, self.config.halo_in), jnp.float32)
 

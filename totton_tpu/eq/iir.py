@@ -6,7 +6,7 @@ The primary EQ path bakes the response into the convolution filter spectrum
 biquads evaluated with jax.lax.scan over time, vmapped over channels, with
 carried per-band state for streaming.
 
-IIR recursions are inherently sequential; on TPU this runs on the VPU via
+IIR recursions are inherently sequential; on the device this runs as a
 scan. For S bands the per-sample work is a length-S fori cascade — fine for
 audio EQ (S <= ~20). Throughput-critical EQ should use the spectral path.
 """

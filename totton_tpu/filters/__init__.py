@@ -1,6 +1,6 @@
 """Offline FIR filter design toolkit.
 
-TPU-native rebuild of the reference's scripts/filters/ package
+Rebuild of the reference's scripts/filters/ package
 (generate_filter.py, generate_minimum_phase.py, generate_linear_phase.py):
 Kaiser-window lowpass design, homomorphic minimum-phase conversion, DC-gain
 normalization, validation, and export to the .bin + .json sidecar format

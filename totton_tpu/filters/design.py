@@ -15,7 +15,7 @@ standard DSP algorithms:
   1/ratio; the filter's DC gain restores amplitude, with 1% headroom).
 
 All design math runs in float64 on host (numpy/scipy); only the exported taps
-are float32. TPU float64 is emulated/slow, so design stays host-side.
+are float32. Accelerator float64 is slow, so design stays host-side.
 """
 
 from __future__ import annotations

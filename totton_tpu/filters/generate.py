@@ -1,6 +1,6 @@
 """Filter generation CLI.
 
-TPU-framework equivalent of the reference's
+Equivalent of the reference's
 ``python -m scripts.filters.generate_minimum_phase --generate-all`` /
 ``generate_linear_phase`` entry points (generate_minimum_phase.py:245-325):
 designs one or all of the eight multi-rate configs, validates, and exports

@@ -1,9 +1,9 @@
 """Host-side audio IO: PCM conversion, WAV/raw files, ring buffers, sources
-and sinks, and the streaming session that feeds the TPU engine.
+and sinks, and the streaming session that feeds the device engine.
 
 Replaces the reference's ALSA middleware (src/alsa/alsa_common.cpp,
 src/io/) with a device-agnostic source/sink abstraction; ALSA hardware
-itself is out of scope on TPU hosts, but the negotiation, conversion, and
+itself is out of scope on accelerator hosts, but the negotiation, conversion, and
 buffering semantics are preserved.
 """
 

@@ -1,7 +1,7 @@
 """Audio sources and sinks — the device layer.
 
 The reference talks to ALSA hardware (src/alsa/, src/io/dac_capability.cpp);
-on a TPU host the endpoints are files, pipes, sockets, or a null device.
+on a GPU host the endpoints are files, pipes, sockets, or a null device.
 This module gives them a uniform frame interface plus a capability
 descriptor that plays the DAC-capability role in rate negotiation.
 
@@ -104,7 +104,7 @@ class AudioSink:
 
     def write_quantized(self, x: np.ndarray) -> None:
         """Write already-quantized int16 sample values [channels, n]
-        (engine device-PCM mode — quantization happened on the TPU;
+        (engine device-PCM mode — quantization happened on the device;
         ops/device_pcm.py). Sinks with an s16 byte stream override this to
         pack directly; the fallback converts to the exact float32
         representation (int16 is exactly representable) and uses the

@@ -1,7 +1,7 @@
 """Network audio transport: PCM streaming over TCP / unix-domain sockets.
 
 The reference's live loop talks to ALSA hardware on both ends
-(src/alsa/alsa_streamer_main.cpp:495-611). On a TPU host audio arrives over
+(src/alsa/alsa_streamer_main.cpp:495-611). On a GPU host audio arrives over
 the network; this module is the live-device analog: a framed PCM stream on
 a stream socket, usable as `--in` / `--out` endpoints of totton-stream:
 

@@ -1,4 +1,4 @@
-"""Streaming session: source -> ring -> TPU engine -> ring -> sink.
+"""Streaming session: source -> ring -> device engine -> ring -> sink.
 
 Re-design of the reference's live ALSA loop and file pipeline
 (src/alsa/alsa_streamer_main.cpp:254-346,495-611): period-sized reads are
@@ -192,14 +192,11 @@ class StreamStats:
 
 
 #: Dispatch granules (blocks per device dispatch) when the caller doesn't
-#: pick one. Offline (file) sources accumulate DEEP dispatches — measured
-#: on the real chip (PERF.md dispatch-depth sweep), throughput keeps
-#: climbing with batch well past 100 blocks (the per-frame matmuls only
-#: fill the MXU and amortize the absorbed weight tensor when batched):
-#: 16x runs 2.5 G samples/s at 128 blocks, 3.6 G at 512; 2x 1.75 G and
-#: 4x 2.4 G at 512. 512 balances that against host-ring memory
-#: (~105 MB at 2x) and per-dispatch working set. Realtime/pipe sources
-#: dispatch as soon as one block is ready to bound latency.
+#: pick one. Offline (file) sources accumulate DEEP dispatches, which
+#: amortize the fixed per-dispatch cost over many blocks; 512 balances
+#: that against host-ring memory (~105 MB at 2x) and per-dispatch working
+#: set. Realtime/pipe sources dispatch as soon as one block is ready to
+#: bound latency.
 OFFLINE_BATCH_BLOCKS = 512
 REALTIME_BATCH_BLOCKS = 16
 
@@ -223,7 +220,7 @@ def _warm_up(engine: StreamingUpsampler, channels: int, block_in: int,
              max_batch_blocks: int) -> None:
     """Pre-compile the dispatch shapes a low-latency stream will hit.
 
-    jit compilation is minutes on a remote TPU; for realtime/pipe sources
+    jit compilation takes seconds per shape; for realtime/pipe sources
     a mid-stream compile means seconds of dropped or stalled audio, so
     the single-block shape (the steady-state dispatch at threshold 1) and
     the max-batch shape (backlog catch-up) are compiled before the first
@@ -264,8 +261,8 @@ def _quantize_nblocks(ready: int, max_batch_blocks: int,
 
     Low-latency sessions may only hit shapes that _warm_up pre-compiled
     ({1, max_batch_blocks}): a backlog of 2..max-1 blocks (one slow
-    tunneled dispatch while the feeder kept reading) would otherwise jit a
-    fresh batch shape mid-stream — minutes of stalled audio, the exact
+    dispatch while the feeder kept reading) would otherwise jit a
+    fresh batch shape mid-stream — seconds of stalled audio, the exact
     failure warm-up exists to prevent.
 
     Offline sources accumulate to exactly max_batch_blocks in steady state;
@@ -287,8 +284,7 @@ def _quantize_nblocks(ready: int, max_batch_blocks: int,
 #: In-flight device steps per session when the engine supports two-phase
 #: dispatch (dispatch_block/fetch). 2 = classic double buffering plus one
 #: queued step: the device computes step i+1 (and has i+2 queued) while
-#: the host drains/writes step i — the transfer/compute overlap of
-#: VERDICT r3 item 1. Each in-flight step holds one dispatch's output on
+#: the host drains/writes step i — transfer/compute overlap. Each in-flight step holds one dispatch's output on
 #: device (~105-210 MB at the 512-block offline granule — comfortably
 #: resident).
 PIPELINE_DEPTH = 2

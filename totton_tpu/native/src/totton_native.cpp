@@ -1,8 +1,8 @@
 // Native host-side audio runtime: PCM conversion, interleave, SPSC ring.
 //
-// TPU-native equivalent of the reference's C++ middleware hot paths
+// Equivalent of the reference's C++ middleware hot paths
 // (src/alsa/alsa_common.cpp:42-127 conversions, include/io/audio_ring_buffer.h
-// SPSC ring). The TPU does the DSP; this library keeps the host feeder/
+// SPSC ring). The GPU does the DSP; this library keeps the host feeder/
 // drainer threads off the Python interpreter for high-channel-count streams.
 //
 // Build: g++ -O3 -march=native -shared -fPIC (driven by totton_tpu.native).

@@ -1,8 +1,8 @@
-"""Core TPU compute ops (JAX/XLA/Pallas).
+"""Core device compute ops (JAX/XLA).
 
 The hot path of the framework: overlap-save frequency-domain FIR convolution
 with integer zero-stuff upsampling, batched over channels and time blocks.
-TPU-native re-design of the reference engine
+Re-design of the reference engine
 (src/vulkan/vulkan_streaming_upsampler.cpp).
 """
 

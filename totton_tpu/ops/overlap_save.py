@@ -1,6 +1,6 @@
 """Overlap-save frequency-domain FIR upsampling — the framework's hot path.
 
-TPU-native re-design of the reference engine's ProcessBlock
+Re-design of the reference engine's ProcessBlock
 (src/vulkan/vulkan_streaming_upsampler.cpp:500-596). The reference runs, per
 block and per channel: full-size complex FFT of the zero-stuffed signal on
 GPU, a *CPU-side* pointwise multiply in mapped memory, and a full-size
@@ -10,37 +10,38 @@ inverse FFT. This implementation differs structurally:
    periodic extension of the compact signal's DFT:
        u[n] = x[n/r] if r | n else 0   =>   U[k] = X[k mod M],  N = r*M.
    So the forward transform is an rfft of length fft_size/ratio on the
-   *input-rate* frame (16x smaller at ratio 16) plus an O(N) gather —
+   *input-rate* frame (16x smaller at ratio 16) plus an O(N) copy —
    never materializing the zero-stuffed signal.
 
 2. **No sequential state.** Overlap-save needs only the previous taps-1
    *input* samples (a halo), not carried output state. All blocks compute in
    parallel: batched [channels, blocks, frame] rffts -> spectral multiply ->
    batched irffts. Streaming mode just carries the last halo_in input
-   samples; time-sharding across chips exchanges the same halo via
+   samples; time-sharding across devices exchanges the same halo via
    jax.lax.ppermute (see totton_tpu.parallel).
 
-3. **The spectral multiply is fused on-device** by XLA into the FFT
-   pipeline — fixing the reference's GPU->CPU->GPU round trip.
+3. **The spectral multiply stays on the device**, fused by XLA between the
+   two library transforms — fixing the reference's GPU->CPU->GPU round trip.
 
-All transforms are the in-house matmul FFT (totton_tpu.ops.fft — this TPU
-backend implements neither the FFT HLO nor complex dtypes), with spectra in
-real-pair (re, im) float32 form. The filter spectrum is precomputed in
-float64 on host and cast once; runtime signal path is float32 like the
-reference (src/vulkan/fft_utils.h:30).
+Per frame the pipeline is: ``jnp.fft.rfft`` of the input-rate frame
+(complex64), periodic extension to the output-rate bin grid, multiply by
+the filter spectrum, ``jnp.fft.irfft`` at fft_size, discard the first
+taps-1 samples. On a GPU XLA lowers both transforms to cuFFT; the same
+code runs on the CPU backend for tests. The filter spectrum is
+precomputed in float64 on host and cast once; the runtime signal path is
+float32 like the reference (src/vulkan/fft_utils.h:30). Spectra cross
+the engine, serve and sharded boundaries as (re, im) float32 pairs and are
+joined with ``lax.complex`` inside the jitted step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from totton_tpu.ops import fft as _fft
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,7 +139,6 @@ def filter_spectrum(
                 f"{spectrum.shape}"
             )
         spectrum = spectrum * eq_response
-    # Real-pair representation (this TPU backend has no complex dtype).
     return (
         jnp.asarray(spectrum.real.astype(np.float32)),
         jnp.asarray(spectrum.imag.astype(np.float32)),
@@ -185,615 +185,40 @@ def frame_input(x: jnp.ndarray, block_in: int, halo_in: int) -> jnp.ndarray:
     return wide[..., pad:]
 
 
-def _periodic_rfft_extend(sr: jnp.ndarray, si: jnp.ndarray, ratio: int):
+def _periodic_rfft_extend(xf: jnp.ndarray, ratio: int) -> jnp.ndarray:
     """Extend rfft(frame, M) to the rfft grid of the zero-stuffed length r*M.
 
     U[k] = X[k mod M] for k in [0, r*M/2]; the full period of X is rebuilt
-    from the rfft half via Hermitian symmetry (conj = negated imag).
+    from the rfft half via Hermitian symmetry (X[M-k] = conj X[k]).
     """
     if ratio == 1:
-        return sr, si
-    reps = ratio // 2
-    batch = (1,) * (sr.ndim - 1)
-    full_r = jnp.concatenate([sr[..., :-1], sr[..., -1:0:-1]], axis=-1)
-    full_i = jnp.concatenate([si[..., :-1], -si[..., -1:0:-1]], axis=-1)
-    out_r = jnp.concatenate(
-        [jnp.tile(full_r, batch + (reps,)), sr[..., :1]], axis=-1
-    )
-    out_i = jnp.concatenate(
-        [jnp.tile(full_i, batch + (reps,)), si[..., :1]], axis=-1
-    )
-    return out_r, out_i
-
-
-def _fold_g(spectrum, fft_size: int):
-    """Fold the rfft filter spectrum [h+1] pair into the G1/G2 arrays of
-    the reversal-free formulation (see upsample_frames docstring)."""
-    hr, hi = spectrum
-    h = fft_size // 2
-    k = np.arange(h)
-    w = np.exp(-2j * np.pi * k / fft_size)
-    a = 0.5 * (1.0 - 1j * w)
-    b = 0.5 * (1.0 + 1j * w)
-    ca_r = jnp.asarray(a.real.astype(np.float32))
-    ca_i = jnp.asarray((-a.imag).astype(np.float32))  # conj(A)
-    cb_r = jnp.asarray(b.real.astype(np.float32))
-    cb_i = jnp.asarray((-b.imag).astype(np.float32))  # conj(B)
-    h_r, h_i = hr[:h], hi[:h]
-    hrev_r = jnp.flip(hr[1:])      # H[h-k], k = 0..h-1
-    hrev_i = -jnp.flip(hi[1:])     # conj
-    # Fold the inverse transform's 1/h normalization into G (one fewer
-    # full-array pass at runtime).
-    inv_h = np.float32(1.0 / h)
-    g1 = ((ca_r * h_r - ca_i * h_i) * inv_h,
-          (ca_r * h_i + ca_i * h_r) * inv_h)
-    g2 = ((cb_r * hrev_r - cb_i * hrev_i) * inv_h,
-          (cb_r * hrev_i + cb_i * hrev_r) * inv_h)
-    return g1, g2
-
-
-import os as _os
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelTuning:
-    """Kernel formulation knobs, resolved at ENGINE CONSTRUCTION.
-
-    Every knob has a measured default (PERF.md rounds 2-4); the TOTTON_*
-    env vars seed the defaults via from_env(), but callers (engines,
-    benchmarks, auto-tuners) pass an explicit instance to A/B
-    formulations in one process — no restart required (the tuning is part
-    of make_block_step's cache key, and spectra stay traced arguments).
-
-    form: whole-inverse formulation —
-      "split":    separate real/imag einsums per stage (4 at K=r_m + 2 at
-                  K=Q2);
-      "stacked":  real/imag folded into the contraction axes — ONE
-                  stage-1 einsum at K=2*r_m and ONE stage-2 einsum at
-                  K=2*Q2, interleave always absorbed (1.23x over split
-                  at 16x/80k/1024 blocks, PERF.md round 3);
-      "stacked2": the forward transform stacked too — the whole frame
-                  pipeline is exactly FOUR einsums (+4-5% over stacked).
-    stage2_interleave ("split" form only): "einsum" absorbs the even/odd
-      output interleave into the stage-2 weights (1.19x over "stack"'s
-      explicit interleave pass, PERF.md round 3).
-    inv_q2: pin the inverse's (P2, Q2) split (Q2 = value, P2 = h//Q2);
-      0 = automatic (balanced split + the measured K-curve rebalance,
-      (512, 128) at the production 16x geometry).
-    fwd_p: pin the forward transform's two-stage split (P = value,
-      Q = m//P); 0 = automatic (_fft._factorize; (128, 64) at m=8192).
-    min_frames: below this many frames per dispatch the GW precompute
-      and small-K stage-1 matmuls don't amortize and the folded pipeline
-      wins (measured on the real chip, PERF.md).
-    """
-
-    form: str = "stacked2"
-    stage2_interleave: str = "einsum"
-    inv_q2: int = 0
-    fwd_p: int = 0
-    min_frames: int = 32
-
-    def __post_init__(self) -> None:
-        if self.form not in ("split", "stacked", "stacked2"):
-            raise ValueError(f"unknown kernel form: {self.form!r}")
-        if self.stage2_interleave not in ("stack", "einsum"):
-            raise ValueError(
-                f"unknown stage2_interleave: {self.stage2_interleave!r}")
-
-    @classmethod
-    def from_env(cls, **overrides) -> "KernelTuning":
-        """Default tuning, seeded by the TOTTON_* env knobs (deployment
-        surface, docs/deployment.md); keyword overrides win."""
-        base = {
-            "form": _os.environ.get("TOTTON_ABSORBED_FORM", "stacked2"),
-            "stage2_interleave": _os.environ.get(
-                "TOTTON_STAGE2_INTERLEAVE", "einsum"),
-            "inv_q2": int(_os.environ.get("TOTTON_INV_Q2", "0") or 0),
-            "fwd_p": int(_os.environ.get("TOTTON_FWD_P", "0") or 0),
-        }
-        base.update(overrides)
-        return cls(**base)
-
-
-#: Minimum frames per dispatch for the K-curve inverse-split rebalance.
-#: The rebalance trades stage-2 FLOPs for deeper stage-1 contractions,
-#: which only pays when the einsums' M dimension (= frames per dispatch)
-#: fills the MXU rows. Hardware sweep (PERF.md round 4, same session):
-#: at 16x the rebalanced (512, 128) split wins +8.3% at 1024 blocks
-#: (2048 frames) and is a wash at 256 blocks (512 frames), but LOSES
-#: 2.6-17% at <= 128 blocks (<= 256 frames) where the balanced
-#: (256, 256) split's shallower-but-wider stage 2 is cheaper — the
-#: round-3 import-time rebalance was costing the latency-bounded live
-#: streaming config ~15%.
-_REBALANCE_MIN_FRAMES = 512
-
-
-def _inv_split(m: int, h: int, inv_q2: int = 0,
-               n_frames: int | None = None) -> tuple[int, int] | None:
-    """(P2, Q2) factorization of the half-size inverse, or None when the
-    absorbed path doesn't apply. Honors the inv_q2 rebalance override
-    when it satisfies every structural divisibility the absorbed algebra
-    needs (h = P2*Q2, r_m = m/Q2 integral, t_reps = P2/r_m integral);
-    an inapplicable override silently falls back to the default split so
-    the knob can never break correctness on other geometries.
-
-    ``n_frames`` (the dispatch's batch size, static at trace time) gates
-    the K-curve rebalance: small dispatches keep the balanced split (see
-    _REBALANCE_MIN_FRAMES). None means "assume throughput batch".
-    """
-    if inv_q2 > 0 and h % inv_q2 == 0 and m % inv_q2 == 0:
-        p2, q2 = h // inv_q2, inv_q2
-        r_m = m // q2
-        if r_m > 0 and p2 % r_m == 0:
-            return p2, q2
-    factors = _fft._factorize(h)
-    if len(factors) != 2:
-        return None
-    p2, q2 = factors
-    if n_frames is not None and n_frames < _REBALANCE_MIN_FRAMES:
-        return p2, q2
-    # Measured rebalance (PERF.md round 3): when stage-1's contraction
-    # r_m = m/Q2 sits below 64 (K = 2*r_m below the ~128 knee of the
-    # K-curve), halving Q2 doubles stage-1 depth (time-flat per the
-    # ~linear steep region) and HALVES stage-2 FLOPs at a still-strong
-    # K = 2*Q2. Hardware A/B at 16x/80k-tap/1024 blocks: (256,256) 6.61
-    # -> (512,128) 7.12 G samples/s; overshooting to (1024,64) loses
-    # (5.09) — hence the q2 >= 256 floor, which keeps the rebalanced
-    # stage-2 K >= 256. Ratios 4/8 already have r_m >= 64 and are
-    # untouched.
-    while m % q2 == 0 and m // q2 < 64 and q2 >= 256 and q2 % 2 == 0:
-        p2, q2 = p2 * 2, q2 // 2
-    return p2, q2
-
-
-def _absorbed_eligible(
-    cfg: OverlapSaveConfig, n_frames: int,
-    tuning: KernelTuning | None = None,
-) -> bool:
-    """The tile-absorbed inverse applies when the half-size inverse is a
-    two-stage factorization, the frame splits evenly into its lane factor
-    (always true for the production geometries), the ratio is >= 4 (at 2x
-    the tile is trivial, so absorbing only inflates GW to h*r_m weights),
-    and the dispatch is batched enough to amortize the GW precompute."""
-    tuning = tuning or KernelTuning.from_env()
-    if cfg.overlap % 2 != 0 or cfg.ratio < 4:
-        return False
-    if n_frames < tuning.min_frames:
-        return False
-    m = cfg.frame_in
-    h = cfg.fft_size // 2
-    split = _inv_split(m, h, tuning.inv_q2, n_frames)
-    if split is None:
-        return False
-    _, q2 = split
-    return m % q2 == 0
-
-
-@functools.lru_cache(maxsize=64)
-def _absorbed_consts(m: int, h: int, q2: int):
-    """Host constants of the tile-absorbed inverse (numpy float32 pairs).
-
-    Wt[k1, t, s] = exp(+2pi i (t*r_m + s) k1 / P2)   (stage-1 DFT, p split)
-    Wh[k1, q]    = exp(+2pi i k1 q / h)              (inter-stage twiddle)
-    W2[q, k2']   = exp(+2pi i q (k2_0 + k2') / Q2)   (stage 2, pruned cols)
-    """
-    p2 = h // q2
-    r_m = m // q2
-    t_reps = p2 // r_m
-    k1 = np.arange(p2)[:, None, None]
-    tt = np.arange(t_reps)[None, :, None]
-    ss = np.arange(r_m)[None, None, :]
-    ang = 2.0 * np.pi * (((tt * r_m + ss) * k1) % p2) / p2
-    wt = (np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32))
-    kk, qq = np.meshgrid(np.arange(p2), np.arange(q2), indexing="ij")
-    ang_h = 2.0 * np.pi * ((kk * qq) % h) / h
-    wh = (np.cos(ang_h).astype(np.float32), np.sin(ang_h).astype(np.float32))
-    return p2, q2, r_m, t_reps, wt, wh
-
-
-def _aligned_k2_0(j0: int, p2: int, q2: int) -> int:
-    """First kept stage-2 output column of the pruned inverse.
-
-    Natural pruning: keep q2 - j0//p2 columns. An experiment that snapped
-    the kept count UP to a multiple of 128 (MXU lane width) — motivated by
-    isolated-matmul measurements where a [*, 256] @ [256, 100] tile ran at
-    1.8 TFLOP/s vs 4.2 for 128-aligned outputs (benchmarks/bench_stages) —
-    measured 2-3% SLOWER end-to-end in a same-session A/B at both 16x and
-    2x (PERF.md round 2): inside the fused pipeline XLA already absorbs the
-    sub-lane output tile, so the +28% stage-2 FLOPs just cost. Natural
-    pruning stays.
-    """
-    return j0 // p2
-
-
-@functools.lru_cache(maxsize=64)
-def _stage2_matrix(q2: int, p2: int, k2_0: int):
-    """Pruned stage-2 DFT matrix W_{Q2}^{+q k2}, columns k2 >= k2_0."""
-    qq, kk = np.meshgrid(np.arange(q2), np.arange(k2_0, q2), indexing="ij")
-    ang = 2.0 * np.pi * ((qq * kk) % q2) / q2
-    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=64)
-def _stage2_matrix_interleaved(q2: int, p2: int, k2_0: int):
-    """Stage-2 weights with the even/odd output interleave ABSORBED.
-
-    The pipeline's last full-array pass is out[2j] = Re z[j],
-    out[2j+1] = Im z[j] (a stack + reshape). Emitting the stage-2 einsum
-    as [..., k2', k1, e] with an explicit e (even/odd) axis on the weights
-    makes the interleaved natural order ((k2'*P2 + k1)*2 + e) a pure
-    reshape of the matmul output — the stack pass never exists:
-
-      out[..., m, k, e] = sum_q cr A[q, m, e] + ci B[q, m, e]
-      A[:, :, 0] = W2_re, A[:, :, 1] = W2_im   (Re/Im from cr)
-      B[:, :, 0] = -W2_im, B[:, :, 1] = W2_re  (Re/Im from ci)
-
-    Measured on the real chip against the stacked formulation (PERF.md
-    round 3): 1.19x end-to-end at 16x/80k-tap/1024-block dispatch — now
-    the default. The cost is 2x the stage-2 weight bytes (A and B each
-    carry both Re and Im planes), which is static and tiny next to the
-    deleted per-frame full-output pass.
-    """
-    w2_r, w2_i = _stage2_matrix(q2, p2, k2_0)
-    a = np.stack([w2_r, w2_i], axis=-1)
-    b = np.stack([-w2_i, w2_r], axis=-1)
-    return np.ascontiguousarray(a), np.ascontiguousarray(b)
-
-
-@functools.lru_cache(maxsize=64)
-def _stage2_matrix_stacked(q2: int, p2: int, k2_0: int):
-    """Interleave-absorbed stage-2 weights with the (cr, ci) pair folded
-    into the contraction: W2S[q, r, m, e] so that
-    out[..., m, k, e] = einsum('...kqr,qrme->...mke', c, W2S) — one K=2*Q2
-    matmul replacing the A/B pair of _stage2_matrix_interleaved."""
-    a, b = _stage2_matrix_interleaved(q2, p2, k2_0)
-    return np.ascontiguousarray(np.stack([a, b], axis=1))
-
-
-def _pruned_half_inverse(zr, zi, h: int, j0: int):
-    """Unnormalized inverse complex FFT of length h computing only the
-    output tail j >= (j0 // P2) * P2 when h is a two-stage factorization:
-    the output index is j = k2*P2 + k1, so discarding j < j0 prunes whole
-    stage-2 matmul columns (the overlap-save discard region is never
-    computed). Returns (tr, ti, rem) with rem = j0 - (j0 // P2) * P2
-    leading samples for the caller to trim.
-
-    Falls back to the full transform + slice for single-stage sizes."""
-    factors = _fft._factorize(h)
-    if len(factors) != 2:
-        tr, ti = _fft._fft_rec(zr, zi, factors, inverse=True)
-        return tr[..., j0:], ti[..., j0:], 0
-    p2, q2 = factors
-    wr, wi = _fft._dft_matrix(p2, True)
-    ar = zr.reshape(zr.shape[:-1] + (p2, q2))
-    ai = zi.reshape(zi.shape[:-1] + (p2, q2))
-    sub = "...pq,pk->...kq"
-    brr = jnp.einsum(sub, ar, wr, precision=_fft._PRECISION)
-    bii = jnp.einsum(sub, ai, wi, precision=_fft._PRECISION)
-    bri = jnp.einsum(sub, ar, wi, precision=_fft._PRECISION)
-    bir = jnp.einsum(sub, ai, wr, precision=_fft._PRECISION)
-    br, bi = brr - bii, bri + bir
-    tw_r, tw_i = _fft._twiddle(p2, q2, True)
-    cr, ci = _fft.complex_mul(br, bi, tw_r, tw_i)
-    k2_0 = _aligned_k2_0(j0, p2, q2)
-    rem = j0 - k2_0 * p2
-    w2_r, w2_i = _stage2_matrix(q2, p2, k2_0)
-    # Emit [..., k2', k1] directly so natural order j = k2*P2 + k1 is a
-    # pure reshape (no materialized swapaxes pass).
-    dr = (
-        jnp.einsum("...kq,qm->...mk", cr, w2_r, precision=_fft._PRECISION)
-        - jnp.einsum("...kq,qm->...mk", ci, w2_i, precision=_fft._PRECISION)
-    )
-    di = (
-        jnp.einsum("...kq,qm->...mk", cr, w2_i, precision=_fft._PRECISION)
-        + jnp.einsum("...kq,qm->...mk", ci, w2_r, precision=_fft._PRECISION)
-    )
-    lead = zr.shape[:-1]
-    tr = dr.reshape(lead + (-1,))
-    ti = di.reshape(lead + (-1,))
-    return tr, ti, rem
-
-
-def _absorbed_stacked(frames, cfg: OverlapSaveConfig, m, h, p2, q2, r_m,
-                      gw_r, gw_i, split_ok: bool, tuning: KernelTuning):
-    """Stacked whole-inverse: real/imag pairs folded into the contraction
-    axes, so the inverse is exactly TWO einsums —
-
-      stage 1 (K = 2*r_m):  c[..., k, q, r] from x2 = [x_r | x_i] and
-        W1[k, z, q, r] with z = [s | s] rows = (GW_r; GW_i | -GW_i; GW_r)
-      stage 2 (K = 2*Q2):   out[..., m, k, e] = c . W2S[q, r, m, e]
-        (interleave absorbed a la _stage2_matrix_interleaved)
-
-    — identical FLOPs to the split formulation, but each contraction depth
-    doubles (K=32 -> 64 on stage 1, where the measured MXU rate is ~linear
-    in K; PERF.md round-2 contraction-size law). A/B'd on hardware before
-    any default change.
-
-    With tuning.form == "stacked2" the FORWARD transform is stacked
-    too (fft.fft2_real_split_stacked: twiddle folded into static stage-2
-    weights, re/im on a trailing axis — two einsums, no elementwise
-    passes) and stage 1 here contracts (s, r) jointly straight off the
-    forward's output — no concat of the spectrum halves. The whole
-    frame pipeline is then exactly FOUR einsums."""
-    lead = frames.shape[:-1]
-    if split_ok and tuning.form == "stacked2":
-        d, p_f, _ = _fft.fft2_real_split_stacked(
-            frames.astype(jnp.float32), m, p=tuning.fwd_p or None)
-        w = q2 // p_f
-        # [..., f(P), k2(Q_f), r] -> [..., f, s(r_m), b(w), r].
-        x2 = d.reshape(lead + (p_f, r_m, w, 2))
-        gws_r = gw_r.reshape(p2, r_m, w, p_f)
-        gws_i = gw_i.reshape(p2, r_m, w, p_f)
-        # W1[k, s, rin, b, f, rout]: rin=0 (re rows) -> (GW_r, GW_i),
-        # rin=1 (im rows) -> (-GW_i, GW_r) — the same values as the
-        # concat layout below, indexed for a joint (s, r) contraction.
-        w1 = jnp.stack(
-            [jnp.stack([gws_r, gws_i], axis=-1),
-             jnp.stack([-gws_i, gws_r], axis=-1)],
-            axis=2)  # [k, s, rin, b, f, rout]
-        c = jnp.einsum("...fsbr,ksrbfx->...kbfx", x2, w1,
-                       precision=_fft._PRECISION)
-        c = c.reshape(lead + (p2, q2, 2))
-    elif split_ok:
-        dr, di, p_f, _ = _fft.fft2_real_split(
-            frames.astype(jnp.float32), m, p=tuning.fwd_p or None)
-        w = q2 // p_f
-        # [..., f(P), k2(Q_f)] -> [..., f, s(r_m), b(w)]; k2 = s*w + b.
-        xn_r = dr.reshape(lead + (p_f, r_m, w))
-        xn_i = di.reshape(lead + (p_f, r_m, w))
-        x2 = jnp.concatenate([xn_r, xn_i], axis=-2)  # [..., f, 2s, b]
-        gws_r = gw_r.reshape(p2, r_m, w, p_f)
-        gws_i = gw_i.reshape(p2, r_m, w, p_f)
-        w1 = jnp.stack(
-            [jnp.concatenate([gws_r, -gws_i], axis=1),   # -> cr
-             jnp.concatenate([gws_i, gws_r], axis=1)],   # -> ci
-            axis=-1)  # [k, 2s, b, f, r]
-        c = jnp.einsum("...fzb,kzbfr->...kbfr", x2, w1,
-                       precision=_fft._PRECISION)
-        c = c.reshape(lead + (p2, q2, 2))
-    else:
-        xr, xi = _fft.fft2_real(frames.astype(jnp.float32), m)
-        xn_r = xr.reshape(lead + (r_m, q2))
-        xn_i = xi.reshape(lead + (r_m, q2))
-        x2 = jnp.concatenate([xn_r, xn_i], axis=-2)  # [..., 2s, q]
-        w1 = jnp.stack(
-            [jnp.concatenate([gw_r, -gw_i], axis=1),
-             jnp.concatenate([gw_i, gw_r], axis=1)],
-            axis=-1)  # [k, 2s, q, r]
-        c = jnp.einsum("...zq,kzqr->...kqr", x2, w1,
-                       precision=_fft._PRECISION)
-    j0 = cfg.overlap // 2
-    k2_0 = _aligned_k2_0(j0, p2, q2)
-    rem = j0 - k2_0 * p2
-    s2 = _stage2_matrix_stacked(q2, p2, k2_0)  # [q, r, m, e]
-    out = jnp.einsum("...kqr,qrme->...mke", c, s2,
-                     precision=_fft._PRECISION).reshape(lead + (-1,))
-    return out[..., 2 * rem : 2 * rem + cfg.block_size]
-
-
-def _upsample_frames_absorbed(
-    frames: jnp.ndarray, spectrum, cfg: OverlapSaveConfig,
-    tuning: KernelTuning | None = None,
-) -> jnp.ndarray:
-    """Tile-absorbed inverse: the hot path for ratio >= 4 (gated by
-    _absorbed_eligible; 2x stays on the folded pipeline per PERF.md) (see
-    upsample_frames docstring). Per frame it materializes only the m-point
-    forward spectrum and the two [P2, Q2]-sized inverse stages — the
-    h-point tiled spectrum E and the elementwise Z pass of the folded
-    formulation never exist, and the pruned stage 2 emits only the kept
-    ~block/2 z-domain samples (the overlap region is never computed)."""
-    tuning = tuning or KernelTuning.from_env()
-    m = cfg.frame_in
-    h = cfg.fft_size // 2
-    n_frames = math.prod(frames.shape[:-1])
-    split = _inv_split(m, h, tuning.inv_q2, n_frames)
-    if split is None:
-        raise ValueError(
-            "absorbed path requires a two-stage inverse split "
-            f"(fft_size/2 = {h} does not factorize; use upsample_frames, "
-            "which gates on _absorbed_eligible)")
-    _, q2_split = split
-    p2, q2, r_m, t_reps, (wt_r, wt_i), (wh_r, wh_i) = _absorbed_consts(
-        m, h, q2_split)
-
-    # Fold the filter into the stage-1 weights (traced: hot-swap never
-    # recompiles). For ratio >= 2 the two folded terms share E (the tiled
-    # spectrum is Hermitian-symmetric), so G = G1 + G2 up front.
-    (g1r, g1i), (g2r, g2i) = _fold_g(spectrum, cfg.fft_size)
-    gr = (g1r + g2r).reshape(t_reps, r_m, q2)
-    gi = (g1i + g2i).reshape(t_reps, r_m, q2)
-    # GW0[k1, s, q] = sum_t G[(t r_m + s) Q2 + q] W_P2^{+(t r_m + s) k1}
-    gw0_r = (
-        jnp.einsum("tsq,kts->ksq", gr, wt_r, precision=_fft._PRECISION)
-        - jnp.einsum("tsq,kts->ksq", gi, wt_i, precision=_fft._PRECISION)
-    )
-    gw0_i = (
-        jnp.einsum("tsq,kts->ksq", gr, wt_i, precision=_fft._PRECISION)
-        + jnp.einsum("tsq,kts->ksq", gi, wt_r, precision=_fft._PRECISION)
-    )
-    # Inter-stage twiddle folded in: GW = GW0 * W_h^{+k1 q}.
-    gw_r = gw0_r * wh_r[:, None, :] - gw0_i * wh_i[:, None, :]
-    gw_i = gw0_r * wh_i[:, None, :] + gw0_i * wh_r[:, None, :]
-
-    # Forward transform + inverse stage 1 with tile/filter/twiddle absorbed
-    # (contract s = r_m). When the forward is two-stage with P | Q2, the
-    # stage-1 contraction consumes the forward's PRE-TRANSPOSE split layout
-    # directly: natural bin k = k2*P + k1 decomposes as s = k2 // w,
-    # q = (k2 % w)*P + k1 with w = Q2/P, so re-indexing GW on the q axis
-    # (a pure reshape of a traced tensor) replaces the forward's
-    # inter-stage transpose — one fewer full HBM pass per frame.
-    m_factors = _fft._split_factors(m, tuning.fwd_p or None)
-    split_ok = (m_factors is not None and len(m_factors) == 2
-                and q2 % m_factors[0] == 0)
-    if tuning.form in ("stacked", "stacked2"):
-        return _absorbed_stacked(frames, cfg, m, h, p2, q2, r_m,
-                                 gw_r, gw_i, split_ok, tuning)
-    if split_ok:
-        dr, di, p_f, _ = _fft.fft2_real_split(
-            frames.astype(jnp.float32), m, p=tuning.fwd_p or None)
-        w = q2 // p_f
-        lead = dr.shape[:-2]
-        # [..., f(P), k2(Q_f)] -> [..., f, s(r_m), b(w)]; k2 = s*w + b.
-        xn_r = dr.reshape(lead + (p_f, r_m, w))
-        xn_i = di.reshape(lead + (p_f, r_m, w))
-        # GW q axis (Q2) -> (b, f): q = b*P + f.
-        gws_r = gw_r.reshape(p2, r_m, w, p_f)
-        gws_i = gw_i.reshape(p2, r_m, w, p_f)
-        cr = (
-            jnp.einsum("...fsb,ksbf->...kbf", xn_r, gws_r,
-                       precision=_fft._PRECISION)
-            - jnp.einsum("...fsb,ksbf->...kbf", xn_i, gws_i,
-                         precision=_fft._PRECISION)
-        )
-        ci = (
-            jnp.einsum("...fsb,ksbf->...kbf", xn_r, gws_i,
-                       precision=_fft._PRECISION)
-            + jnp.einsum("...fsb,ksbf->...kbf", xn_i, gws_r,
-                         precision=_fft._PRECISION)
-        )
-        # [..., k1, b, f] -> [..., k1, q]: q = b*P + f (pure reshape).
-        cr = cr.reshape(lead + (p2, q2))
-        ci = ci.reshape(lead + (p2, q2))
-    else:
-        xr, xi = _fft.fft2_real(frames.astype(jnp.float32), m)
-        xn_r = xr.reshape(xr.shape[:-1] + (r_m, q2))
-        xn_i = xi.reshape(xi.shape[:-1] + (r_m, q2))
-        cr = (
-            jnp.einsum("...sq,ksq->...kq", xn_r, gw_r,
-                       precision=_fft._PRECISION)
-            - jnp.einsum("...sq,ksq->...kq", xn_i, gw_i,
-                         precision=_fft._PRECISION)
-        )
-        ci = (
-            jnp.einsum("...sq,ksq->...kq", xn_r, gw_i,
-                       precision=_fft._PRECISION)
-            + jnp.einsum("...sq,ksq->...kq", xn_i, gw_r,
-                         precision=_fft._PRECISION)
-        )
-
-    # Inverse stage 2, output-pruned: j = k2*P2 + k1, keep j >= j0
-    # (kept columns 128-aligned; see _aligned_k2_0).
-    j0 = cfg.overlap // 2
-    k2_0 = _aligned_k2_0(j0, p2, q2)
-    rem = j0 - k2_0 * p2
-    if tuning.stage2_interleave == "einsum":
-        # Even/odd interleave absorbed into the stage-2 output layout
-        # (see _stage2_matrix_interleaved): the matmul emits
-        # [..., k2', k1, e] and the interleaved block is a pure reshape —
-        # the final stack pass of the stacked formulation never exists.
-        a2, b2 = _stage2_matrix_interleaved(q2, p2, k2_0)
-        out = (
-            jnp.einsum("...kq,qme->...mke", cr, a2,
-                       precision=_fft._PRECISION)
-            + jnp.einsum("...kq,qme->...mke", ci, b2,
-                         precision=_fft._PRECISION)
-        ).reshape(frames.shape[:-1] + (-1,))
-        return out[..., 2 * rem : 2 * rem + cfg.block_size]
-    w2_r, w2_i = _stage2_matrix(q2, p2, k2_0)
-    # Stage 2 emits [..., k2', k1] directly (einsum output order) — the
-    # z-domain natural order j = k2*P2 + k1 is then a pure reshape, no
-    # materialized swapaxes pass.
-    dr = (
-        jnp.einsum("...kq,qm->...mk", cr, w2_r, precision=_fft._PRECISION)
-        - jnp.einsum("...kq,qm->...mk", ci, w2_i, precision=_fft._PRECISION)
-    )
-    di = (
-        jnp.einsum("...kq,qm->...mk", cr, w2_i, precision=_fft._PRECISION)
-        + jnp.einsum("...kq,qm->...mk", ci, w2_r, precision=_fft._PRECISION)
-    )
-    # Even/odd interleave: out[2j] = Re z[j], out[2j+1] = Im z[j].
-    tr = dr.reshape(frames.shape[:-1] + (-1,))
-    ti = di.reshape(frames.shape[:-1] + (-1,))
-    out = jnp.stack([tr, ti], axis=-1).reshape(frames.shape[:-1] + (-1,))
-    return out[..., 2 * rem : 2 * rem + cfg.block_size]
+        return xf
+    batch = (1,) * (xf.ndim - 1)
+    full = jnp.concatenate([xf[..., :-1], jnp.conj(xf[..., -1:0:-1])], axis=-1)
+    return jnp.concatenate(
+        [jnp.tile(full, batch + (ratio // 2,)), xf[..., :1]], axis=-1)
 
 
 def upsample_frames(
-    frames: jnp.ndarray, spectrum, cfg: OverlapSaveConfig,
-    tuning: KernelTuning | None = None,
+    frames: jnp.ndarray, spectrum, cfg: OverlapSaveConfig
 ) -> jnp.ndarray:
     """[..., frame_in] input-rate frames -> [..., block_size] output blocks.
 
-    Reversal-free folded formulation (shared with the fused Pallas kernel,
-    experimental/pallas_kernels.py): the forward transform is the FULL m-point DFT
-    of the real frame (m = frame_in); its periodic tiling
-    E[k] = Xf[k mod m] is the zero-stuffed spectrum; the inverse-real-FFT
-    untangling and the filter multiply collapse into Z = E*G1 + E2*G2 via
-    the Hermitian identity E[h-k] = conj(E[k]); then one half-size complex
-    ifft and an even/odd interleave yield the output-rate block, and the
-    first taps-1 samples are discarded (overlap-save). All transforms are
-    the in-house matmul FFT (totton_tpu.ops.fft) in real-pair form.
-
-    For ratio >= 4 with a two-stage inverse and a batched dispatch
-    (tuning.min_frames+ frames — production throughput shapes) the
-    tile-absorbed variant is used: tiling, filter multiply, and the
-    inverse's first DFT stage collapse into one precomputed [P2, r_m, Q2]
-    weight tensor, and the pruned stage 2 never computes the discarded
-    overlap region (_upsample_frames_absorbed).
-
-    Falls back to the classic rfft/extension/irfft pipeline when the
-    overlap is odd (taps even — the z-domain slice needs overlap % 2 == 0).
+    rfft at the input rate -> periodic extension (the zero-stuffed
+    spectrum) -> x H -> irfft at fft_size -> discard the first taps-1
+    samples (overlap-save). ``spectrum`` is the (re, im) float32 pair of
+    filter_spectrum.
     """
-    tuning = tuning or KernelTuning.from_env()
-    m = cfg.frame_in
-    h = cfg.fft_size // 2
-    if cfg.overlap % 2 != 0:
-        return _upsample_frames_classic(frames, spectrum, cfg)
-    n_frames = math.prod(frames.shape[:-1])
-    if _absorbed_eligible(cfg, n_frames, tuning):
-        return _upsample_frames_absorbed(frames, spectrum, cfg, tuning)
-
-    (g1r, g1i), (g2r, g2i) = _fold_g(spectrum, cfg.fft_size)
-    reps = h // m
-    j0 = cfg.overlap // 2
-    if reps >= 1:
-        # For ratio >= 2 the two folded terms share E (the tiled spectrum
-        # is the same array), so the filter collapses to G = G1 + G2 —
-        # half the spectral-multiply reads/FLOPs.
-        gr_, gi_ = g1r + g2r, g1i + g2i
-    # (A split-layout variant that also skips the forward's inter-stage
-    # transpose here measured as a wash at 2x — XLA already fuses that
-    # transpose on the elementwise folded path — so the natural-order
-    # pipeline below stays; the absorbed path above is where the split
-    # layout pays, through its matmul stage-1 contraction.)
-    xr, xi = _fft.fft2_real(frames.astype(jnp.float32), m)
-    batch = (1,) * (xr.ndim - 1)
-    if reps > 1:
-        er = jnp.tile(xr, batch + (reps,))
-        ei = jnp.tile(xi, batch + (reps,))
-        zr = er * gr_ - ei * gi_
-        zi = er * gi_ + ei * gr_
-    elif reps == 1:
-        zr = xr * gr_ - xi * gi_
-        zi = xr * gi_ + xi * gr_
-    else:  # ratio == 1: h = m // 2; second term reads the upper half.
-        er, ei = xr[..., :h], xi[..., :h]
-        e2r, e2i = xr[..., h:], xi[..., h:]
-        zr = er * g1r - ei * g1i + e2r * g2r - e2i * g2i
-        zi = er * g1i + ei * g1r + e2r * g2i + e2i * g2r
-    # Unnormalized pruned inverse: 1/h is folded into G above, and the
-    # discarded overlap region never leaves the stage-2 matmul.
-    # out[2j] = Re z[j], out[2j+1] = Im z[j]; keep j >= overlap/2.
-    tr, ti, rem = _pruned_half_inverse(zr, zi, h, j0)
-    out = jnp.stack([tr, ti], axis=-1).reshape(frames.shape[:-1] + (-1,))
-    return out[..., 2 * rem : 2 * rem + cfg.block_size]
-
-
-def _upsample_frames_classic(
-    frames: jnp.ndarray, spectrum, cfg: OverlapSaveConfig
-) -> jnp.ndarray:
-    """rfft -> periodic extension -> x H -> irfft -> discard (fallback)."""
     hr, hi = spectrum
-    xr, xi = _fft.rfft2(frames.astype(jnp.float32), cfg.frame_in)
-    er, ei = _periodic_rfft_extend(xr, xi, cfg.ratio)
-    yr, yi = _fft.complex_mul(er, ei, hr, hi)
-    y = _fft.irfft2(yr, yi, cfg.fft_size)
+    h = jax.lax.complex(hr, hi)
+    xf = jnp.fft.rfft(frames.astype(jnp.float32), n=cfg.frame_in)
+    y = jnp.fft.irfft(_periodic_rfft_extend(xf, cfg.ratio) * h,
+                      n=cfg.fft_size)
     return y[..., cfg.overlap :]
 
 
 def upsample_blocks(
-    x: jnp.ndarray, spectrum, cfg: OverlapSaveConfig,
-    tuning: KernelTuning | None = None,
+    x: jnp.ndarray, spectrum, cfg: OverlapSaveConfig
 ) -> jnp.ndarray:
     """Upsample a contiguous input carrying its own history.
 
@@ -802,30 +227,24 @@ def upsample_blocks(
     Returns [..., B*block_size] float32 at the output rate.
     """
     frames = frame_input(x, cfg.block_in, cfg.halo_in)
-    blocks = upsample_frames(frames, spectrum, cfg, tuning)
+    blocks = upsample_frames(frames, spectrum, cfg)
     return blocks.reshape(x.shape[:-1] + (blocks.shape[-2] * cfg.block_size,))
 
 
 @functools.lru_cache(maxsize=64)
-def _make_block_step(cfg: OverlapSaveConfig, tuning: KernelTuning):
-    @jax.jit
-    def step(tail: jnp.ndarray, x: jnp.ndarray, spectrum: jnp.ndarray):
-        xin = jnp.concatenate([tail, x], axis=-1)
-        y = upsample_blocks(xin, spectrum, cfg, tuning)
-        new_tail = xin[..., -cfg.halo_in :] if cfg.halo_in else tail[..., :0]
-        return y, new_tail
-
-    return step
-
-
-def make_block_step(cfg: OverlapSaveConfig,
-                    tuning: KernelTuning | None = None):
+def make_block_step(cfg: OverlapSaveConfig):
     """Jitted streaming step: (tail, x, spectrum) -> (y, new_tail).
 
     tail: [C, halo_in] carried input history; x: [C, B*block_in] fresh input;
     returns y: [C, B*block_size] and the updated tail. The spectrum is a
-    traced argument, so filter hot-swap (RELOAD) never recompiles. The
-    tuning is resolved here (env defaults) and becomes part of the cache
-    key, so two engines with different tunings coexist in one process.
+    traced argument, so filter hot-swap (RELOAD) never recompiles.
     """
-    return _make_block_step(cfg, tuning or KernelTuning.from_env())
+
+    @jax.jit
+    def step(tail: jnp.ndarray, x: jnp.ndarray, spectrum):
+        xin = jnp.concatenate([tail, x], axis=-1)
+        y = upsample_blocks(xin, spectrum, cfg)
+        new_tail = xin[..., -cfg.halo_in :] if cfg.halo_in else tail[..., :0]
+        return y, new_tail
+
+    return step

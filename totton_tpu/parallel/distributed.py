@@ -1,8 +1,9 @@
 """Multi-host initialization.
 
-TPU-native replacement for "distributed backend: none" in the reference
-(SURVEY.md section 2.3): jax.distributed wires N hosts into one global
-device mesh; collectives ride ICI within a slice and DCN across slices.
+Replacement for "distributed backend: none" in the reference (SURVEY.md
+section 2.3): jax.distributed wires N hosts into one global device mesh;
+collectives ride NVLink between the cards of a host and the network
+between hosts.
 """
 
 from __future__ import annotations

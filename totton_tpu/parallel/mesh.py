@@ -15,10 +15,12 @@ def make_mesh(
     """Build a 2D Mesh with axes ('channel', 'time').
 
     Defaults: all channels on one shard, all devices along 'time' (time
-    parallelism scales with pod size; channel count is fixed by the audio
-    format). On multi-host, devices are ordered so the 'time' axis's
-    neighboring shards land on ICI neighbors where possible (jax.devices()
-    order groups by host).
+    parallelism scales with the device count; channel count is fixed by
+    the audio format). Within one host every card reaches every other over
+    NVLink, so the order of devices along 'time' does not matter there.
+    On multi-host, each process's devices form one contiguous block of the
+    grid (jax.devices() order groups by host), so the 'time' halo crosses
+    the network only at process boundaries.
     """
     if devices is None:
         devices = jax.devices()

@@ -18,8 +18,8 @@ DEFAULT_LOCALE = "en"
 
 _EN = {
     # chrome
-    "app.title": "Totton TPU DSP",
-    "app.tagline": "TPU-native audio upsampling DSP",
+    "app.title": "Totton GPU DSP",
+    "app.tagline": "GPU audio upsampling DSP",
     "nav.eq": "EQ",
     "nav.settings": "Settings",
     "nav.opra_sync": "OPRA Sync",
@@ -131,8 +131,8 @@ _EN = {
 }
 
 _JA = {
-    "app.title": "Totton TPU DSP",
-    "app.tagline": "TPUネイティブ オーディオアップサンプリングDSP",
+    "app.title": "Totton GPU DSP",
+    "app.tagline": "GPU オーディオアップサンプリングDSP",
     "nav.eq": "EQ",
     "nav.settings": "設定",
     "nav.opra_sync": "OPRA同期",
